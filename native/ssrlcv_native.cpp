@@ -3,7 +3,7 @@
 // The reference implements its IO layer natively (vendored tinyply PLY codec,
 // tinyply.{h,cpp}; Unity<T> binary checkpoint writer/reader, Unity.cuh:924-971
 // / :467-531; raw image buffer plumbing in io_util.cpp).  This library is the
-// TPU build's equivalent: a small C++17 codec core for the hot host-side IO
+// package's equivalent: a small C++17 codec core for the hot host-side IO
 // paths — binary PLY encode/decode and the .uty checkpoint format — exposed
 // through a C ABI consumed via ctypes (no pybind11 dependency).
 //

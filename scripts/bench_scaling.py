@@ -7,7 +7,7 @@ multi-chip hardware, run on the virtual CPU mesh for logic validation:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python scripts/bench_scaling.py
 
-On a real pod slice the same script measures true ICI scaling.
+On several GPUs the same script measures real scaling.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def main():
             "virtual CPU devices timeshare the same physical cores (XLA CPU "
             "already multithreads a single device), so wall-clock efficiency "
             "here only validates the collective logic; the >=75% bar applies "
-            "to real multi-chip ICI runs"
+            "to runs on real devices"
         )
     print(json.dumps(out))
 

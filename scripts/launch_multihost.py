@@ -2,10 +2,10 @@
 """Multi-host launcher for the distributed pipeline.
 
 The reference scales by launching independent single-GPU Slurm jobs
-(scripts/sub-run-sfm-*.sh); the TPU build scales one reconstruction across
+(scripts/sub-run-sfm-*.sh); this package scales one reconstruction across
 hosts: one process per host joins a jax.distributed cluster, the global
-(data, feat) mesh spans every chip, and the sharded stages
-(ssrlcv_tpu.parallel.sharded) run with ICI/DCN collectives.
+(data, feat) mesh spans every device, and the sharded stages
+(ssrlcv_tpu.parallel.sharded) run with cross-host collectives.
 
 Usage (run on every host):
     python scripts/launch_multihost.py \

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Ad-hoc scratch driver (the reference's second executable, src/Tester.cu:36-120):
 exercises the logger + the 2-view match -> triangulate path on the golden
-fixtures, printing phase timings.  Run on TPU with `python scripts/tester.py`
-or on CPU with `SSRLCV_PLATFORM=cpu python scripts/tester.py`.
+fixtures, printing phase timings.  Run on the default device with
+`python scripts/tester.py` or on CPU with `SSRLCV_PLATFORM=cpu python
+scripts/tester.py`.
 """
 
 import os
@@ -18,7 +19,9 @@ import jax
 
 if platform:
     jax.config.update("jax_platforms", platform)
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
+from ssrlcv_tpu.backend import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 FIXTURE = "/root/reference/test/checkpoints/Pipeline2View"
 

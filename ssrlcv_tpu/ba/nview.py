@@ -2,7 +2,7 @@
 
 The reference declares this surface but never implemented it
 (BundleAdjustNView, PointCloudFactory.cu:2270-2277 — a logged TODO stub).
-This module provides the real thing, TPU-style: a damped Newton/LM loop with
+This module provides the real thing: a damped Newton/LM loop with
 exact autodiff gradient and Hessian over all N cameras' 6-dof parameters,
 with the N-view objective being the total angular error (sum over tracks of
 the mean squared point-line distance after least-squares triangulation).
@@ -22,6 +22,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ssrlcv_tpu.ba.two_view import lm_solve
 from ssrlcv_tpu.config import BAParams
 from ssrlcv_tpu.core.types import Cameras, MatchSet, PointCloud
 from ssrlcv_tpu.geometry.bundles import generate_bundles
@@ -80,10 +81,7 @@ def bundle_adjust_nview_jit(
         p, best_p, best_e, lam = state
         g = jax.grad(obj_grad)(p) * free
         H = jax.hessian(obj_grad)(p)
-        damped = H + lam * jnp.diag(jnp.maximum(jnp.diag(H), 1e-8))
-        pin = 1.0 - free
-        damped = damped * free[:, None] * free[None, :] + jnp.diag(pin)
-        step = jnp.linalg.solve(damped, g)
+        step = lm_solve(H, g, lam, free)
         cand = p - step * free
         e = obj(cand)
         ok = e < best_e

@@ -39,6 +39,21 @@ from ssrlcv_tpu.geometry.bundles import generate_bundles
 from ssrlcv_tpu.geometry.triangulation import linear_error_objective, two_view_triangulate
 
 
+def lm_solve(H, g, lam, free):
+    """Damped Levenberg-Marquardt step H_damped^-1 g with pinned parameters
+    (``free`` is 1 for a free parameter, 0 for a pinned one: its row and
+    column become the identity, so its step is 0).
+
+    The camera block mixes km positions with radian angles, so the damped
+    Hessian is badly conditioned: the solve runs at full float32 precision,
+    where a GPU's default may round matrix products to TF32."""
+    damped = H + lam * jnp.diag(jnp.maximum(jnp.diag(H), 1e-8))
+    pin = 1.0 - free
+    damped = damped * free[:, None] * free[None, :] + jnp.diag(pin)
+    with jax.default_matmul_precision("highest"):
+        return jnp.linalg.solve(damped, g)
+
+
 def _apply_params(cameras: Cameras, params: jax.Array) -> Cameras:
     """params: (N, 6) [pos(3), rot(3)] absolute camera state."""
     return cameras.replace(cam_pos=params[:, 0:3], cam_rot=params[:, 3:6])
@@ -114,7 +129,9 @@ def bundle_adjust_two_view(
         U, S, Vt = jnp.linalg.svd(H, full_matrices=False)
         s_max = jnp.max(S)
         s_inv = jnp.where(S > svd_rcond * s_max, 1.0 / S, 0.0)
-        step = (Vt.T * s_inv[None, :]) @ (U.T @ g)
+        step = jnp.matmul(Vt.T * s_inv[None, :],
+                          jnp.matmul(U.T, g, precision="highest"),
+                          precision="highest")
         new_params = params - alpha * (step * free_flat).reshape(n_cams, 6)
         return new_params, lam
 
@@ -122,11 +139,7 @@ def bundle_adjust_two_view(
         params, best_params, best_err, prev_err, alpha, lam, it, done, hist = state
         g = jax.grad(flat_obj)(params.reshape(-1)) * free_flat
         H = jax.hessian(flat_obj)(params.reshape(-1))
-        damped = H + lam * jnp.diag(jnp.maximum(jnp.diag(H), 1e-8))
-        # pin camera 0 rows/cols to identity so the solve is well-posed
-        pin = 1.0 - free_flat
-        damped = damped * free_flat[:, None] * free_flat[None, :] + jnp.diag(pin)
-        step = jnp.linalg.solve(damped, g)
+        step = lm_solve(H, g, lam, free_flat)
         new_params = params - (step * free_flat).reshape(n_cams, 6)
         return new_params, lam
 

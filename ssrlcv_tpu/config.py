@@ -63,11 +63,11 @@ class SIFTParams:
     # Descriptor normalisation clamp (SIFT_FeatureFactory.cu:433,439).
     descriptor_clamp: float = 0.2
     dense: bool = False
-    # Static capacity for keypoints per image (TPU fixed shapes; masked).
+    # Static capacity for keypoints per image (fixed shapes; masked).
     max_keypoints: int = 65536
-    # Describe keypoints in per-blur buckets with tight gather windows.
-    # Saves ~2.5x gather traffic but costs extra kernel dispatches; a win
-    # on locally-attached chips, a loss over high-latency device tunnels.
+    # Host-loop SIFT path only: describe keypoints in per-blur buckets with
+    # tight gather windows (~2.5x less gather traffic, one more dispatch per
+    # bucket).  The fused path always buckets.
     bucket_describe: bool = False
 
 

@@ -19,8 +19,8 @@ import jax
 import jax.numpy as jnp
 from functools import partial
 
-# Geometry runs at km scale; tiny 3x3 contractions must stay fp32 even on
-# TPU where the default matmul precision is bf16.
+# Geometry runs at km scale; tiny 3x3 contractions must stay full float32,
+# where a GPU's default matmul precision may be TF32 (about 3 decimal digits).
 _einsum = partial(jnp.einsum, precision="highest")
 
 from ssrlcv_tpu.config import EARTH_MAX_KM_FROM_CENT, EARTH_MIN_KM_FROM_CENT

@@ -4,10 +4,10 @@ The reference's data model is array-of-structs (``Feature<SIFT_Descriptor>``,
 ``KeyPoint``, ``MultiMatch``, ``Bundle`` — Feature.cuh:31, MatchFactory.cuh:31-72,
 PointCloudFactory.cuh:25-48) held in ``Unity<T>`` dual-residency buffers.
 
-The TPU design is struct-of-arrays: every collection is a pytree of
+This design is struct-of-arrays: every collection is a pytree of
 fixed-capacity ``jax.Array``s with a validity mask, so all stage functions jit
-with static shapes and XLA can lay the hot axes out on (8,128)-tiled VMEM.
-There is no host/device state machine — arrays live in HBM, and
+with static shapes.
+There is no host/device state machine — arrays live on the device, and
 ``np.asarray`` at the I/O boundary is the only transfer point.
 """
 
@@ -18,7 +18,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ssrlcv_tpu.core import pytree as struct
 
 
 @struct.dataclass
@@ -110,7 +110,7 @@ class MatchSet:
 
     The reference represents tracks as a flat ``KeyPoint`` array plus
     ``MultiMatch{numKeyPoints, index}`` offsets (MatchFactory.cuh:31-47).
-    The TPU layout is a dense (T, V) tensor of keypoint slots with per-slot
+    Here the layout is a dense (T, V) tensor of keypoint slots with per-slot
     parent image ids and a views-count, which keeps triangulation fully
     vectorised with static shapes.
     """

@@ -1,6 +1,6 @@
 """Dense SIFT and dense Window_NxN patch descriptors.
 
-TPU re-design of the reference's dense paths:
+Re-design of the reference's dense paths:
 
   * dense SIFT (generateFeatures dense=true, SIFT_FeatureFactory.cu:32-54 +
     createFeatures :171-230): a descriptor at every interior pixel (12 px
@@ -20,7 +20,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ssrlcv_tpu.core import pytree as struct
 
 from ssrlcv_tpu.config import SIFTParams
 from ssrlcv_tpu.core.types import FeatureSet
@@ -42,14 +42,14 @@ def _interior_grid(h: int, w: int, border: int):
 @partial(jax.jit, static_argnames=("params", "w_or", "h", "w"))
 def _dense_orientation_field(grads, params: SIFTParams, w_or: int, h: int, w: int):
     """Orientation assignment for EVERY interior pixel as pure stencil
-    compute — the dense path's TPU-native replacement for the per-keypoint
+    compute — the dense path's replacement for the per-keypoint
     histogram gather (computeThetas, FeatureFactory.cu:1004-1120, at
     dense=true fixed sigma=1 / pixel_width=1).
 
     Because the window (±ceil(3·λ_o)=±5) and Gaussian width are the SAME at
     every pixel, the 36-bin weighted histogram field is 36 separable
     11-tap convolutions of mag·[bin==b] — lowered as shifted multiply-adds
-    (the 65x-over-lax.conv trick of ops.convolve_separable_symmetric).  Peak
+    (ops.convolve_separable_symmetric).  Peak
     finding + parabola interpolation then run vectorised over the whole
     field.  No gather, no per-keypoint work.
 
@@ -83,8 +83,8 @@ def _dense_orientation_field(grads, params: SIFTParams, w_or: int, h: int, w: in
         # is sliced to below
         y = ops.convolve_separable_symmetric(f, taps)
         planes.append(y[b : h - b, b : w - b])
-    hist = jnp.stack(planes)  # (36, Hi, Wi) — bin-major: a trailing 36-lane
-    # axis would tile-pad ~3.5x, and all per-bin math is elementwise anyway
+    hist = jnp.stack(planes)  # (36, Hi, Wi) — bin-major: all per-bin math
+    # below is elementwise over whole planes
 
     # peak finding + parabola interpolation, identical formulas to
     # compute_orientations' process() body (orientation.py:151-168)
@@ -129,10 +129,9 @@ def _dense_compact(theta_f, ok_f, params: SIFTParams, h: int, w: int, cap: int):
     rebuilt on device (iota), so nothing crosses the host link.
 
     Compaction is ONE multi-operand lax.sort on position-or-sentinel keys
-    (no argsort + flat gathers — at ~2M dense slots the ~100 Melem/s gather
-    path would cost tens of ms).  cap may exceed the slot count (chunk
-    alignment at near-saturated images): inputs are padded first so the
-    [:cap] slices always have cap rows."""
+    (no argsort + flat gathers of the ~2M dense slots).  cap may exceed the
+    slot count (capacity quantisation at near-saturated images): inputs are
+    padded first so the [:cap] slices always have cap rows."""
     b = params.border
     m = params.max_orientations
     wi = w - 2 * b
@@ -156,55 +155,29 @@ def _dense_compact(theta_f, ok_f, params: SIFTParams, h: int, w: int, cap: int):
     return (jnp.stack([lx[:cap], ly[:cap]], axis=1), th[:cap], ok[:cap])
 
 
-# Keypoints per Pallas descriptor dispatch on the dense path: the kernel's
-# 8 per-keypoint scalar-prefetch operands live in SMEM (1 MB total on v5e),
-# so one call must stay <= ~16k keypoints (16384 * 4 B * 8 = 512 KB).  The
-# chunks run under ONE lax.map program — one dispatch, one kernel instance
-# (embedding many Pallas kernels in a program OOMs the compile helper).
-DENSE_DESC_CHUNK = 16384
-
-
-@partial(jax.jit, static_argnames=("params", "w_de", "use_kernel", "chunk"))
+@partial(jax.jit, static_argnames=("params", "w_de", "chunk"))
 def _dense_describe(grads_plane, loc, theta, mask, image_id,
-                    params: SIFTParams, w_de: int, use_kernel: bool,
-                    chunk: int = 4096):
+                    params: SIFTParams, w_de: int, chunk: int = 4096):
     """Descriptor pass + FeatureSet assembly for the compacted dense
-    keypoints — one device program, output stays HBM-resident."""
+    keypoints — one device program, output stays device-resident."""
     cap = loc.shape[0]
-
-    def _descriptors(lc, th, mk):
-        c = lc.shape[0]
-        kps = SSKeyPoints(
-            blur=jnp.zeros(c, jnp.int32),
-            loc=lc,
-            intensity=jnp.zeros(c, jnp.float32),
-            sigma=jnp.ones(c, jnp.float32),
-            theta=th,
-            mask=mk,
-        )
-        return fill_descriptors(
-            grads_plane if use_kernel else grads_plane[None], kps, 1.0,
-            params, chunk=chunk, w_max=w_de, use_kernel=use_kernel)
-
-    if use_kernel and cap > DENSE_DESC_CHUNK:
-        assert cap % DENSE_DESC_CHUNK == 0, cap  # caller pads the capacity
-        nch = cap // DENSE_DESC_CHUNK
-        desc, loc_image = jax.lax.map(
-            lambda c: _descriptors(*c),
-            (loc.reshape(nch, DENSE_DESC_CHUNK, 2),
-             theta.reshape(nch, DENSE_DESC_CHUNK),
-             mask.reshape(nch, DENSE_DESC_CHUNK)))
-        desc = desc.reshape(cap, 128)
-        loc_image = loc_image.reshape(cap, 2)
-    else:
-        desc, loc_image = _descriptors(loc, theta, mask)
+    kps = SSKeyPoints(
+        blur=jnp.zeros(cap, jnp.int32),
+        loc=loc,
+        intensity=jnp.zeros(cap, jnp.float32),
+        sigma=jnp.ones(cap, jnp.float32),
+        theta=theta,
+        mask=mask,
+    )
+    desc, loc_image = fill_descriptors(
+        grads_plane[None], kps, 1.0, params, chunk=chunk, w_max=w_de)
     return FeatureSet(
         loc=jnp.where(mask[:, None], loc_image, -1.0),
         sigma=jnp.where(mask, 1.0, 0.0),
         theta=jnp.where(mask, theta, 0.0),
         descriptors=jnp.where(mask[:, None], desc, 0),
         mask=mask,
-        parent=jnp.full((cap,), 1, jnp.int32) * image_id,
+        parent=jnp.broadcast_to(jnp.asarray(image_id, jnp.int32), (cap,)),
     )
 
 
@@ -219,8 +192,8 @@ def generate_dense_sift(
     pixel of the normalised image (SIFT_FeatureFactory.cu:32-54 dense=true).
 
     fast=True (the default) computes orientations as a 36-bin stencil field
-    (no gather) and keeps everything device-resident; on TPU the descriptor
-    pass runs through the fused Pallas patch kernel.  fast=False is the
+    (no gather) and keeps everything device-resident; the descriptor pass
+    gathers per keypoint as the sparse path does.  fast=False is the
     original per-keypoint gather path, kept as the cross-check oracle
     (tests/test_dense.py)."""
     params = params or SIFTParams()
@@ -236,32 +209,21 @@ def generate_dense_sift(
     w_de = int(np.ceil(params.descriptor_contrib_width))             # 6
 
     if fast:
-        from ssrlcv_tpu.features.patches import patches_supported
         from ssrlcv_tpu.features.sift import _quantize_cap
 
+        # the orientation field is sliced to the interior, so its stencil
+        # never reads the symmetric-border values
+        if params.border <= w_or:
+            raise ValueError(
+                f"dense SIFT needs border > orientation window: "
+                f"{params.border} <= {w_or}")
         grads_plane = ops.pixel_gradients(img)  # (H, W, 2)
         theta_f, ok_f = _dense_orientation_field(grads_plane, params, w_or, h, w)
         n = int(np.asarray(jnp.sum(ok_f.astype(jnp.int32))))  # one scalar sync
         cap = _quantize_cap(n)
-
-        on_tpu = jax.devices()[0].platform not in ("cpu",)
-        w_pad = max(256, ((w + 127) // 128) * 128)
-        h_pad = ((h + 7) // 8) * 8
-        use_kernel = on_tpu and patches_supported(h_pad, w_pad, w_de)
-        if use_kernel and cap > DENSE_DESC_CHUNK:
-            # chunked kernel dispatch needs a chunk-aligned capacity
-            cap = ((cap + DENSE_DESC_CHUNK - 1) // DENSE_DESC_CHUNK) * DENSE_DESC_CHUNK
         loc, theta, mask = _dense_compact(theta_f, ok_f, params, h, w, cap)
-        if use_kernel and (w_pad != w or h_pad != h):
-            # the patch kernel's lane-tile interleave needs W % 128 == 0, and
-            # the bottom-band DMA clip (y0 <= H - spa) needs H % 8 == 0 so
-            # every clipped start stays 8-row aligned; the zero pad is never
-            # sampled (interior keypoints only)
-            grads_plane = jnp.pad(
-                grads_plane, ((0, h_pad - h), (0, w_pad - w), (0, 0)))
         return _dense_describe(grads_plane, loc, theta, mask,
-                               jnp.int32(image_id), params, w_de, use_kernel,
-                               chunk=chunk)
+                               jnp.int32(image_id), params, w_de, chunk=chunk)
 
     grads = ops.pixel_gradients(img)[None]  # (1, H, W, 2)
 
@@ -351,8 +313,8 @@ def generate_window_features(pixels: np.ndarray | jax.Array, window: int = 9, im
 @partial(jax.jit, static_argnames=("chunk",))
 def sad_best_target(q_desc: jax.Array, t_desc: jax.Array, t_valid: jax.Array, chunk: int = 256):
     """Per-query best target under sum-of-absolute-differences — the
-    Window_NxN distProtocol (Feature.cuh:96-130).  Chunked (no MXU trick for
-    L1; the VPU broadcast-reduce is still far wider than a warp scan)."""
+    Window_NxN distProtocol (Feature.cuh:96-130).  Chunked: L1 has no
+    matrix-product factorisation, so each chunk is a broadcast-reduce."""
     nq = q_desc.shape[0]
     n_chunks = (nq + chunk - 1) // chunk
     pad = n_chunks * chunk - nq

@@ -1,6 +1,6 @@
 """SIFT descriptor generation.
 
-TPU re-design of the fillDescriptors kernel
+Re-design of the fillDescriptors kernel
 (SIFT_FeatureFactory.cu:475-549): each oriented keypoint gathers gradients
 on an integer lattice rotated into its orientation frame, trilinearly
 distributes magnitude-weighted contributions over a 4x4 spatial x 8
@@ -9,8 +9,8 @@ a 0.2 clamp and quantised to uint8.
 
 The reference's one-4x4x8-thread-block-per-keypoint + shared-memory atomics
 becomes a dense (samples x cells x bins) weighted tensor contraction per
-keypoint chunk — deterministic, no atomics, and the contraction maps onto
-TPU vector/matrix units.
+keypoint chunk — deterministic, no atomics, and one batched contraction
+per chunk.
 
 Reference quirks replicated on purpose:
   * the Gaussian weight uses the window width, not sigma
@@ -52,43 +52,21 @@ def descriptor_epilogue(v: jax.Array, mask: jax.Array) -> jax.Array:
 
 
 def fill_descriptors(
-    grads: jax.Array,       # (B, H, W, 2) normalised-DoG gradients, or
-                            # (H, W, 2) single plane when use_patches
+    grads: jax.Array,       # (B, H, W, 2) normalised-DoG gradients
     kps: SSKeyPoints,       # oriented keypoints (theta filled)
     pixel_width: float,
     params: SIFTParams,
     chunk: int = 512,
     w_max: int | None = None,
-    use_patches: bool = False,
-    w_patch: int | None = None,
-    use_kernel: bool = False,
 ):
     """Returns (descriptors (K, 128) uint8, loc_image (K, 2) float32).
 
     loc_image = octave loc * pixel_width (absolute image coordinates,
     SIFT_FeatureFactory.cu:545).
-
-    use_patches: replace the rotated-coordinate multi-dim gather with
-    Pallas patch extraction + within-patch take_along_axis
-    (features/patches.py) — bit-identical sampled values; grads must then
-    be one (H, W, 2) plane.
     """
     h, w = grads.shape[-3], grads.shape[-2]
     if w_max is None:
         w_max = max_desc_window(params)
-    if use_kernel:
-        # fused Pallas path (desc_kernel.py): raw 128-bin histograms from
-        # in-VMEM rotated sampling, epilogue identical to below; grads is
-        # one (H, W, 2) plane
-        from ssrlcv_tpu.features.desc_kernel import descriptor_histograms
-
-        interp = jax.default_backend() == "cpu"
-        v = descriptor_histograms(
-            grads[..., 0], grads[..., 1], kps.loc, kps.theta, kps.sigma,
-            float(pixel_width), float(params.descriptor_contrib_width),
-            w_max, interpret=interp)
-        desc = descriptor_epilogue(v, kps.mask)
-        return desc, kps.loc * pixel_width
     s = 2 * w_max + 1
     offs = jnp.arange(s, dtype=jnp.float32) - w_max
     dxg, dyg = jnp.meshgrid(offs, offs, indexing="xy")  # (S, S) sample lattice
@@ -123,17 +101,8 @@ def fill_descriptors(
 
         xi = jnp.clip(jnp.round(cxs + loc[:, 0:1]).astype(jnp.int32), 0, w - 1)
         yi = jnp.clip(jnp.round(cys + loc[:, 1:2]).astype(jnp.int32), 0, h - 1)
-        if use_patches:
-            from ssrlcv_tpu.features.patches import extract_patches, sample_in_patches
-
-            interp = jax.default_backend() == "cpu"
-            ppx, ppy, y0, x0 = extract_patches(
-                grads[..., 0], grads[..., 1], loc, w_patch or w_max,
-                interpret=interp)
-            g_x, g_y = sample_in_patches(ppx, ppy, y0, x0, yi, xi)  # (C, S2)
-        else:
-            g = grads[blur[:, None], yi, xi]  # (C, S2, 2)
-            g_x, g_y = g[..., 0], g[..., 1]
+        g = grads[blur[:, None], yi, xi]  # (C, S2, 2)
+        g_x, g_y = g[..., 0], g[..., 1]
         mag = jnp.sqrt(g_x ** 2 + g_y ** 2)
         wgt = mag * jnp.exp(-(cxs * cxs + cys * cys) / (2.0 * win[:, None] ** 2))
         ang = jnp.fmod(

@@ -1,6 +1,6 @@
 """DoG keypoint detection: extrema search, subpixel refinement, rejection.
 
-TPU re-design of the reference's per-octave keypoint machinery
+Re-design of the reference's per-octave keypoint machinery
 (FeatureFactory.cu:86-335, kernels :847-1008).  Instead of thrust
 stream-compaction over ragged per-blur lists, keypoints live in a
 fixed-capacity masked struct-of-arrays; every rejection pass just clears mask
@@ -62,9 +62,8 @@ def detect_extrema(
     """
     b, h, w = dog_raw.shape
     # separable shifted max/min: the 27-point window is the composition of
-    # three 3-wide axis reductions (exact — max/min are associative), and the
-    # shifted-slice formulation is ~3x faster than the monolithic 3-D
-    # reduce_window on TPU (same trick as the shifted-add convolutions)
+    # three 3-wide axis reductions (exact — max/min are associative), written
+    # as shifted slices that fuse into one elementwise pass
     def _axis3(op, a, axis):
         n = a.shape[axis]
         sl = lambda s, e: jax.lax.slice_in_dim(a, s, e, axis=axis)
@@ -81,22 +80,19 @@ def detect_extrema(
         is_ext = is_ext & (jnp.abs(mid) >= prefilter_threshold)
 
     flat = is_ext.reshape(-1)
-    # first-`capacity` true positions in index order: a radix sort on
-    # position-or-sentinel keys is 2.6x faster than jnp.nonzero(size=...)
-    # on TPU (84 ms vs 215 ms at the 21M-element octave-0 stack) and
-    # produces the identical index list.
+    # first-`capacity` true positions in index order: a sort on
+    # position-or-sentinel keys produces the identical index list to
+    # jnp.nonzero(size=...).
     #
     # Hierarchical variant for big stacks (the octave-0 sort was 35% of
     # detect time): sort 1024-element row segments along the minor axis
     # (vectorised bitonic), keep each segment's first ROW_M keys, then sort
-    # only the survivors — measured 30 ms vs 63 ms for the full sort at the
-    # 16.7M octave-0 stack, identical output.  Exact while no segment holds
+    # only the survivors — a smaller sort with identical output.  Exact while no segment holds
     # > ROW_M extrema; post-prefilter density on the everest fixtures is
     # ~1.3 per segment MEAN and 12 WORST-CASE (measured over both images).
     # ROW_M = 128 keeps ~10x worst-observed headroom (TIE extrema can be
     # locally dense on periodic/synthetic textures, so it is NOT shrunk to
-    # the fixture worst case) while halving the survivor sort vs ROW_M=256
-    # (detect ~96 -> ~92 ms on chip).  An overflowing segment degrades
+    # the fixture worst case) while halving the survivor sort vs ROW_M=256.  An overflowing segment degrades
     # exactly like the existing capacity truncation (tail keypoints of that
     # segment drop).
     n = flat.shape[0]
@@ -140,7 +136,7 @@ def _dense_newton_fields(dog_norm: jax.Array):
     gather.  The Newton step at an integer position depends only on its 27
     neighbours, so it is a position property: materialising (o0, o1, o2,
     gHg) fields once turns each refinement attempt's 27-point gather into a
-    4-value gather (~7x less gather traffic — the op class TPU is worst at).
+    4-value gather (~7x less gather traffic).
     Same arithmetic as refineLocation (FeatureFactory.cu:892-967), including
     the non-standard diagonal Hessian.
 

@@ -2,7 +2,7 @@
 
 The reference declares `FAST_FeatureFactory` as an empty roadmap stub
 (include/need_implementing/FAST_FeatureFactory.cuh) — this module supplies a
-working TPU-native implementation, going beyond the reference's surface.
+working implementation, going beyond the reference's surface.
 
 FAST-N (Rosten & Drummond 2006): a pixel p is a corner when >= N contiguous
 pixels on the 16-pixel Bresenham circle of radius 3 are all brighter than

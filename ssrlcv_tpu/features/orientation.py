@@ -1,13 +1,13 @@
 """Keypoint orientation assignment.
 
-TPU re-design of computeThetas + expandKeyPoints
+Re-design of computeThetas + expandKeyPoints
 (FeatureFactory.cu:1004-1120): a 36-bin gradient-orientation histogram with
 Gaussian distance weighting, parabola-interpolated circular peaks, and up to
 ``max_orientations`` oriented copies per keypoint.
 
 The per-keypoint CUDA loop becomes a dense gather of a fixed
 (2*W_MAX+1)^2 sample grid (masked to each keypoint's true window) and a
-one-hot histogram matmul — VPU-friendly, no scatter.  Gradients here are the
+set of per-bin masked reductions — no scatter.  Gradients here are the
 gradients of the *normalised DoG response* for the keypoint's blur slice,
 exactly as the reference computes them (Blur::computeGradients on the DoG
 scale space, FeatureFactory.cu:45-54 after conversion).
@@ -36,8 +36,7 @@ def max_window(params: SIFTParams) -> int:
 
 
 def _histogram_for_keypoints(
-    grads: jax.Array,        # (B, H, W, 2) per-DoG-slice gradients, or
-                             # (H, W, 2) single plane when use_patches
+    grads: jax.Array,        # (B, H, W, 2) per-DoG-slice gradients
     blur: jax.Array,         # (K,)
     loc: jax.Array,          # (K, 2)
     sigma: jax.Array,        # (K,)
@@ -45,18 +44,9 @@ def _histogram_for_keypoints(
     pixel_width: float,
     lambda_o: float,
     w_max: int,
-    use_patches: bool = False,
-    w_patch: int | None = None,
-    use_kernel: bool = False,
 ):
     """36-bin weighted orientation histograms, (K, 36), plus the
-    border-validity flag (window inside image, computeThetas:1017-1023).
-
-    use_patches: sample through the Pallas patch extractor
-    (features/patches.py) instead of a multi-dim gather — bit-identical
-    values, ~150x faster on TPU; grads must then be one (H, W, 2) plane
-    (per-blur buckets make the plane uniform across the chunk).
-    """
+    border-validity flag (window inside image, computeThetas:1017-1023)."""
     h, w = grads.shape[-3], grads.shape[-2]
     win = jnp.ceil(sigma * 3.0 * lambda_o / pixel_width)  # float, per kp
 
@@ -74,34 +64,13 @@ def _histogram_for_keypoints(
     dy = offs[:, None]  # (S, 1)
     in_win = (jnp.abs(dx) <= win[:, None, None]) & (jnp.abs(dy) <= win[:, None, None])
 
-    if use_kernel:
-        # fused Pallas path: DMA patch + in-VMEM histogram, no gather
-        # (orient_kernel.py); grads is one (H, W, 2) plane
-        from ssrlcv_tpu.features.orient_kernel import orientation_histograms
-
-        interp = jax.default_backend() == "cpu"
-        hist = orientation_histograms(
-            grads[..., 0], grads[..., 1], loc, sigma,
-            float(pixel_width), w_max, float(lambda_o), interpret=interp)
-        hist = jnp.where(mask[:, None], hist, 0.0)
-        return hist, valid
-
     cx = jnp.round(loc[:, 0]).astype(jnp.int32)
     cy = jnp.round(loc[:, 1]).astype(jnp.int32)
     xi = jnp.clip(cx[:, None, None] + offs.astype(jnp.int32)[None, None, :], 0, w - 1)
     yi = jnp.clip(cy[:, None, None] + offs.astype(jnp.int32)[None, :, None], 0, h - 1)
-    if use_patches:
-        from ssrlcv_tpu.features.patches import extract_patches, sample_in_patches
-
-        interp = jax.default_backend() == "cpu"
-        px, py, y0, x0 = extract_patches(
-            grads[..., 0], grads[..., 1], loc, w_patch or w_max,
-            interpret=interp)
-        g_x, g_y = sample_in_patches(px, py, y0, x0, yi, xi)  # (K, S, S) each
-    else:
-        bi = blur[:, None, None]
-        g = grads[bi, yi, xi]  # (K, S, S, 2)
-        g_x, g_y = g[..., 0], g[..., 1]
+    bi = blur[:, None, None]
+    g = grads[bi, yi, xi]  # (K, S, S, 2)
+    g_x, g_y = g[..., 0], g[..., 1]
 
     mag = jnp.sqrt(g_x ** 2 + g_y ** 2)
     denom = 2.0 * lambda_o * lambda_o * sigma * sigma
@@ -112,7 +81,7 @@ def _histogram_for_keypoints(
     ang = jnp.mod(jnp.arctan2(g_y, g_x) + 2.0 * jnp.pi, 2.0 * jnp.pi)
     bins = jnp.clip(jnp.floor(ang / rad10).astype(jnp.int32), 0, 35)
     # 36 fused masked reductions instead of materialising a (K,S,S,36)
-    # one-hot tensor (orders of magnitude less HBM traffic)
+    # one-hot tensor (orders of magnitude less device-memory traffic)
     hist = jnp.stack(
         [jnp.sum(jnp.where(bins == b, wgt, 0.0), axis=(1, 2)) for b in range(36)],
         axis=1,
@@ -150,9 +119,6 @@ def compute_orientations(
     params: SIFTParams,
     chunk: int = 1024,
     w_max: int | None = None,
-    use_patches: bool = False,
-    w_patch: int | None = None,
-    use_kernel: bool = False,
 ) -> SSKeyPoints:
     """Expand keypoints to <= max_orientations oriented copies each.
 
@@ -168,8 +134,7 @@ def compute_orientations(
         blur, loc, sigma, mask = chunk_kps
         hist, valid = _histogram_for_keypoints(
             grads, blur, loc, sigma, mask, pixel_width,
-            params.orientation_contrib_width, w_max, use_patches=use_patches,
-            w_patch=w_patch, use_kernel=use_kernel,
+            params.orientation_contrib_width, w_max,
         )
         return peaks_from_histograms(hist, valid, params)
 

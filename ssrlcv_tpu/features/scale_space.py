@@ -1,6 +1,6 @@
 """Gaussian scale space + difference-of-Gaussians pyramid.
 
-TPU re-design of the reference ScaleSpace (FeatureFactory.cu:338-440).
+Re-design of the reference ScaleSpace (FeatureFactory.cu:338-440).
 Per octave the six blurs form an *incremental* chain — each Blur convolves
 the previous blur's output with the full sigma_b kernel (the Blur ctor
 mutates the shared pixel buffer, FeatureFactory.cu:11-44) — and each octave
@@ -19,7 +19,7 @@ Pipeline order replicated exactly:
      extrema detection (see detector.py)
 
 Shapes are static per octave, so the whole pyramid jits into one XLA
-computation of chained TPU convolutions.
+computation of chained separable convolutions.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Ray (bundle) generation from match tracks.
 
-TPU re-design of the reference's ``generateBundles`` stage
+Re-design of the reference's ``generateBundles`` stage
 (PointCloudFactory.cu:832-932 host, :4166-4283 kernels): every (track, view)
 slot is lifted to a world ray in one fused, fully-vectorised jnp computation
 over the padded (T, V) track tensor — no per-match loop, no AoS gather.

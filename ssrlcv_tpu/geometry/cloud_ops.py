@@ -1,6 +1,6 @@
 """Point-cloud transforms and debug/analysis writers.
 
-TPU re-design of the reference's cloud utility kernels
+Re-design of the reference's cloud utility kernels
 (scale/translate/rotate/average, PointCloudFactory.cu:4019-4164, 5295-5344)
 and its debug cloud family (saveDebugCloud, saveDebugLinearErrorCloud,
 saveViewNumberCloud, generateSensitivityFunctions,

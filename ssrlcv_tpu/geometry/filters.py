@@ -1,6 +1,6 @@
 """Point-cloud / match-set filters.
 
-TPU re-design of the reference's filter family (PointCloudFactory.cu:3070-3828).
+Re-design of the reference's filter family (PointCloudFactory.cu:3070-3828).
 The reference filters physically rewrite the KeyPoint/MultiMatch arrays with
 CPU compaction loops; here a filter is a pure function MatchSet -> MatchSet
 that only updates the validity mask (order is preserved, so host-side

@@ -1,11 +1,11 @@
 """Dense stereo disparity.
 
-TPU re-design of the reference's disparity path (generateDiparityMatches +
+Re-design of the reference's disparity path (generateDiparityMatches +
 disparityScanMatching window-SAD kernels, MatchFactory.cu:1031-1414;
 computeStereo depth kernels, PointCloudFactory.cu:23-160).
 
 The CUDA design assigns one window-sized thread block per pixel and scans
-disparities serially with shared-memory atomics.  The TPU formulation builds
+disparities serially with shared-memory atomics.  This formulation builds
 the classic cost volume instead: for each disparity d the per-pixel SAD is a
 box-filtered absolute difference of the shifted image pair — one fused
 elementwise+reduce-window op per disparity, batched over the whole image, and

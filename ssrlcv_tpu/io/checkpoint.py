@@ -3,7 +3,7 @@
 The reference checkpoints every pipeline stage into
 ``outputs/sfm-stage<N>/`` with binary ``.uty``/``.cpimg`` dumps plus an empty
 ``done`` marker, and on startup resumes at the first stage whose marker is
-missing (SFM.cu:149-203, Unity.cuh:924-971).  The TPU equivalent keeps the
+missing (SFM.cu:149-203, Unity.cuh:924-971).  This equivalent keeps the
 same stage-door semantics over NPZ archives of pytrees: one
 ``<name>.npz`` per stage + ``done`` marker, written atomically
 (tmp + rename) so a SIGINT mid-write never corrupts the resume chain.

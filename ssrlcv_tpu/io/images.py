@@ -1,13 +1,14 @@
 """Image + camera-parameter loading.
 
 Replicates the reference's image ingestion (Image.cu:95-170): read a
-PNG/JPEG/TIFF, find the sibling ``params.csv`` and take the row whose first
+PGM/PPM/PNG/JPEG/TIFF, find the sibling ``params.csv`` and take the row whose first
 field matches the image filename, filling the Camera.  The ECEF offset of
 image 0 is subtracted from every camera position (Pipeline.cu:37-40) so the
 reconstruction is centred near the origin.
 
-Decoding uses PIL on the host; pixels go to device once as a single uint8
-array (no dual-residency state machine).
+Binary PGM/PPM are read and written with numpy alone; PNG, JPEG and TIFF
+need PIL, imported only for those files.  Pixels go to device once as a
+single uint8 array (no dual-residency state machine).
 """
 
 from __future__ import annotations
@@ -22,21 +23,81 @@ import numpy as np
 from ssrlcv_tpu.core.types import Cameras
 from ssrlcv_tpu.io.refdata import RefImage
 
-IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".tif", ".tiff")
+NETPBM_EXTENSIONS = (".pgm", ".ppm")
+IMAGE_EXTENSIONS = NETPBM_EXTENSIONS + (".png", ".jpg", ".jpeg", ".tif", ".tiff")
+
+
+def _pil():
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing PNG/JPEG/TIFF needs the Pillow package (PIL), "
+            "which is not installed; PGM and PPM need nothing beyond numpy"
+        ) from e
+    return PILImage
+
+
+def read_netpbm(path: str) -> np.ndarray:
+    """Read a binary 8-bit PGM (P5) as (H, W) or PPM (P6) as (H, W, 3)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:  # magic, width, height, maxval
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":  # comment to end of line
+            pos = data.index(b"\n", pos) + 1
+            continue
+        end = pos
+        while end < len(data) and not data[end:end + 1].isspace():
+            end += 1
+        if end == pos:
+            raise ValueError(f"{path}: truncated netpbm header")
+        fields.append(data[pos:end])
+        pos = end
+    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
+    channels = {b"P5": 1, b"P6": 3}.get(magic)
+    if channels is None:
+        raise ValueError(f"{path}: not a binary PGM/PPM (magic {magic!r})")
+    if maxval != 255:
+        raise ValueError(f"{path}: only 8-bit netpbm is supported (maxval {maxval})")
+    pos += 1  # the single whitespace byte that ends the header
+    n = w * h * channels
+    if len(data) - pos < n:
+        raise ValueError(f"{path}: {len(data) - pos} pixel bytes, expected {n}")
+    px = np.frombuffer(data, np.uint8, count=n, offset=pos)
+    return px.reshape((h, w) if channels == 1 else (h, w, 3)).copy()
+
+
+def write_netpbm(path: str, pixels: np.ndarray) -> None:
+    """Write (H, W) uint8 as binary PGM or (H, W, 3) uint8 as binary PPM."""
+    pixels = np.ascontiguousarray(pixels, np.uint8)
+    if pixels.ndim == 2:
+        magic = b"P5"
+    elif pixels.ndim == 3 and pixels.shape[2] == 3:
+        magic = b"P6"
+    else:
+        raise ValueError(f"netpbm needs (H, W) or (H, W, 3) pixels, got {pixels.shape}")
+    h, w = pixels.shape[:2]
+    with open(path, "wb") as f:
+        f.write(magic + b"\n%d %d\n255\n" % (w, h))
+        f.write(pixels.tobytes())
 
 
 def read_image(path: str) -> np.ndarray:
     """Read an image file as (H, W) or (H, W, C) uint8."""
-    from PIL import Image as PILImage
-
-    with PILImage.open(path) as im:
+    if path.lower().endswith(NETPBM_EXTENSIONS):
+        return read_netpbm(path)
+    with _pil().open(path) as im:
         return np.asarray(im)
 
 
 def write_image(path: str, pixels: np.ndarray) -> None:
-    from PIL import Image as PILImage
-
-    PILImage.fromarray(pixels).save(path)
+    if path.lower().endswith(NETPBM_EXTENSIONS):
+        write_netpbm(path, pixels)
+    else:
+        _pil().fromarray(pixels).save(path)
 
 
 def to_grayscale(pixels: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """ctypes bindings for the native IO codec (native/ssrlcv_native.cpp).
 
 The reference's host IO layer is C++ (tinyply, the Unity checkpoint codec);
-this module loads the TPU build's C++ equivalent, building it on first use
+this module loads this package's C++ equivalent, building it on first use
 with the in-tree Makefile.  Every entry point has a pure-Python fallback so
 the library remains optional.
 """

@@ -4,8 +4,8 @@ Replicates the reference Logger (Logger.hpp:30-339, Logger.cpp): CSV rows
 ``<epoch-ms>,<tag>,<payload>`` with tags comment/state/info/warning/error,
 ``log_state`` begin/end timeline markers enabling offline phase timing, a
 background heartbeat thread, and memory accounting.  Hardware telemetry maps
-from the Jetson INA3221 sysfs reads to TPU-side ``jax.local_devices()`` memory
-stats; phase tracing additionally hooks ``jax.profiler`` traces (the TPU
+from the Jetson INA3221 sysfs reads to ``jax.local_devices()`` memory
+stats; phase tracing additionally hooks ``jax.profiler`` traces (the
 equivalent of the reference's clock() wall timers, SURVEY.md §5).
 """
 
@@ -80,7 +80,7 @@ class Logger:
         self.info(f"{name} took {dt:.3f}s")
 
     def log_device_memory(self):
-        """TPU/host memory accounting (the LOG_MEM analogue,
+        """Device/host memory accounting (the LOG_MEM analogue,
         Logger.hpp:114-130): per-device bytes in use when available."""
         try:
             import jax

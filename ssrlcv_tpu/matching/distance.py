@@ -1,13 +1,14 @@
-"""Descriptor distance computation on the MXU.
+"""Descriptor distance computation as integer matrix products.
 
 The reference matcher assigns one 32-thread warp per query feature and scans
 every target feature serially (matchFeaturesBruteForce family,
-MatchFactory.cu:1462-1700).  The TPU formulation turns the O(Nq*Nt) scan into
+MatchFactory.cu:1462-1700).  Here the O(Nq*Nt) scan becomes
 matrix algebra:
 
     ||q - t||^2 = ||q||^2 + ||t||^2 - 2 q.t^T
 
-where the cross-term is a (Nq, 128) @ (128, Nt) matmul that rides the MXU.
+where the cross-term is a (Nq, 128) @ (128, Nt) matmul (s8 x s8 -> s32,
+which tensor cores run natively).
 uint8 descriptors are nibble-split into four int8 matmuls with int32
 accumulation, so distances are *exact* integers — bit-identical to the
 reference's distProtocol float sums (Feature.cuh:89; integer values < 2^24).
@@ -28,7 +29,7 @@ import jax.numpy as jnp
 
 def _cross_term(q: jax.Array, t: jax.Array) -> jax.Array:
     """Exact integer q @ t^T for uint8 descriptors via nibble splitting:
-    q.t = 256*qh.th + 16*(qh.tl + ql.th) + ql.tl — four int8 MXU matmuls."""
+    q.t = 256*qh.th + 16*(qh.tl + ql.th) + ql.tl — four int8 matmuls."""
     qh = (q >> 4).astype(jnp.int8)
     ql = (q & 15).astype(jnp.int8)
     th = (t >> 4).astype(jnp.int8)
@@ -57,8 +58,7 @@ def distance_matrix(q_desc: jax.Array, t_desc: jax.Array) -> jax.Array:
 def sad_matrix(q_desc: jax.Array, t_desc: jax.Array) -> jax.Array:
     """(Nq, D) x (Nt, D) uint8 -> (Nq, Nt) int32 exact sum-of-absolute-
     differences — the Window_NxN distProtocol (Feature.cuh:96-130).  L1 has
-    no MXU factorisation; the VPU broadcast-reduce is still far wider than
-    the reference's 32-thread warp scan."""
+    no matrix-product factorisation, so this is a broadcast-reduce."""
     q = q_desc.astype(jnp.int32)
     t = t_desc.astype(jnp.int32)
     return jnp.sum(jnp.abs(q[:, None, :] - t[None, :, :]), axis=-1)

@@ -1,10 +1,10 @@
 """Multi-depth octree hierarchy: node/vertex/edge/face arrays + 27-neighborhoods.
 
-TPU re-design of the reference Octree's full hierarchy (Octree.cuh:56-165;
+Re-design of the reference Octree's full hierarchy (Octree.cuh:56-165;
 construction Octree.cu:356-620 createFinestNodes/fillInCoarserDepths/
 fillNeighborhoods, VEF arrays Octree.cu:624-1123).  The reference builds a
 pointer-linked Node graph on the GPU with thrust compactions and a 216-entry
-parent/child LUT walk for neighborhoods; none of that is MXU work, so here
+parent/child LUT walk for neighborhoods; none of that is dense tensor work, so here
 the hierarchy is constructed once, host-side, with vectorized numpy — sorted
 Morton keys per depth, full 8-sibling groups (blank siblings included, as the
 reference allocates them in fillBlankNodeArray), and neighborhoods by direct

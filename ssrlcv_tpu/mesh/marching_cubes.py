@@ -1,13 +1,13 @@
 """Isosurface extraction: marching cubes via tetrahedral decomposition.
 
-TPU re-design of the reference's marchingCubes / adaptiveMarchingCubes
+Re-design of the reference's marchingCubes / adaptiveMarchingCubes
 (MeshFactory.cu:716-1014).  Instead of the 256-case cube lookup table (a
 scalar-branchy construction), each cell is split into 6 tetrahedra; a
 tetrahedron crossing the isosurface emits 1 or 2 triangles determined by its
 4-bit sign pattern — 16 cases that reduce to pure vectorised arithmetic.
 This triangulates the *same* isosurface (and sidesteps the classic
 marching-cubes ambiguous-case holes), with every step a dense masked tensor
-op that jits onto the VPU.
+op that jits into fused elementwise code.
 
 Output is fixed-capacity: (max_tris, 3, 3) vertex positions + validity mask;
 host-side compaction dedups vertices for PLY export.

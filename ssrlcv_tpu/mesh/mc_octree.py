@@ -1,6 +1,6 @@
 """Octree-lattice marching cubes: plain, surface-depth (jaxMeshing), adaptive.
 
-TPU re-design of the reference MeshFactory surface chain
+Re-design of the reference MeshFactory surface chain
 (MeshFactory.cu:639-1236):
 
   - ``vertex_implicit_from_normals`` — per octree-lattice vertex, the signed
@@ -9,7 +9,7 @@ TPU re-design of the reference MeshFactory surface chain
     MeshFactory.cu:2055-2091).  The reference approximates "nearest" by
     walking the vertex's 8 adjacent nodes up through parents until a point
     appears; here the nearest point is found *exactly* with a chunked
-    MXU-shaped ``|v|^2+|p|^2-2 v.p`` distance matrix — same intent, no
+    matmul-shaped ``|v|^2+|p|^2-2 v.p`` distance matrix — same intent, no
     pointer walk, and strictly tighter than the node-walk approximation.
   - ``marching_cubes_level`` — classic MC over one octree level's node cubes
     (marchingCubes, MeshFactory.cu:860-1014): surface vertices at crossed
@@ -64,8 +64,11 @@ def vertex_implicit_from_normals(
         p_sq = jnp.sum(p * p, axis=1)
 
         def body(vc):
-            # |v-p|^2 via the matmul identity — MXU-shaped
-            d2 = jnp.sum(vc * vc, axis=1)[:, None] + p_sq[None, :] - 2.0 * (vc @ p.T)
+            # |v-p|^2 via the matmul identity; full float32 precision, as a
+            # reduced-precision (TF32) product can pick the wrong nearest
+            # point for close candidates
+            d2 = (jnp.sum(vc * vc, axis=1)[:, None] + p_sq[None, :]
+                  - 2.0 * jnp.matmul(vc, p.T, precision="highest"))
             nearest = jnp.argmin(d2, axis=1)
             p0 = p[nearest]
             n0 = nrm[nearest]

@@ -1,6 +1,6 @@
 """Mesh / point-cloud post-processing.
 
-TPU re-design of the reference MeshFactory (MeshFactory.cuh:32-225,
+Re-design of the reference MeshFactory (MeshFactory.cuh:32-225,
 MeshFactory.cu): neighbour-distance outlier filtering, the normal-based
 implicit surface function, surface reconstruction via isosurface extraction,
 PLY save/load, and cloud comparison metrics.

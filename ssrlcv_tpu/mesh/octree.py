@@ -1,10 +1,10 @@
 """Morton-code point-cloud octree.
 
-TPU re-design of the reference Octree (Octree.cuh:35-244, Octree.cu): points
+Re-design of the reference Octree (Octree.cuh:35-244, Octree.cu): points
 are normalised into the unit cube, given interleaved-bit Morton keys at a
 target depth (getNodeKeys, Octree.cu:1975), sorted, and uniqued into node
 buckets; coarser depths derive by key >> 3.  Instead of the reference's
-pointer-linked node/vertex/edge/face arrays, the TPU layout keeps
+pointer-linked node/vertex/edge/face arrays, this layout keeps
 sorted-key + segment-offset tensors, and neighbourhood queries are key
 arithmetic + searchsorted — all static-shape friendly.
 
@@ -92,7 +92,7 @@ def build_octree(points: jax.Array, mask: jax.Array, depth: int = 8) -> Octree:
 @partial(jax.jit, static_argnames=("k", "window"))
 def knn(tree: Octree, k: int = 8, window: int = 32):
     """Approximate k-nearest neighbours per point from a +-window in Morton
-    order, refined by true distance (the TPU replacement for the reference's
+    order, refined by true distance (the replacement for the reference's
     27-neighbourhood node walks, Octree.cuh:178-185).
 
     Returns (neighbor_idx (N, k) into the *sorted* order, neighbor_dist (N, k)).

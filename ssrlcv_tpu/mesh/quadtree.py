@@ -1,6 +1,6 @@
 """2-D quadtree over localized data.
 
-TPU re-design of the reference Quadtree (Quadtree.cuh:44-220): a generic
+Re-design of the reference Quadtree (Quadtree.cuh:44-220): a generic
 2-D spatial index over ``LocalizedData<T>`` (data items with float2
 locations).  The reference builds pointer-linked node hierarchies; here the
 structure is a sorted 2-D Morton ordering with per-depth node extents —

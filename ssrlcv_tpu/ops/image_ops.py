@@ -4,8 +4,7 @@ Vectorised jnp re-implementations of the reference's per-pixel CUDA kernels
 (Image.cuh:593-622): float conversion, min-max normalisation, 2x bin /
 bilinear upsample with symmetric borders, separable Gaussian convolution, and
 central-difference gradients.  Everything operates on (H, W) float32 maps and
-fuses under jit; the separable convolutions are lowered by XLA to TPU
-convolutions.
+fuses under jit.
 """
 
 from __future__ import annotations
@@ -138,11 +137,9 @@ def convolve_separable_symmetric(img: jax.Array, taps: np.ndarray) -> jax.Array:
     getSymmetrizedCoord).  The kernel is symmetric so convolution ==
     correlation.
 
-    Lowered as shifted multiply-adds rather than lax.conv: TPU lowers
-    1-channel spatial convolutions to ~1.4 Gflop/s scalar code (the conv
-    pyramid alone cost 3.1 s/image), while the slice+FMA form fuses into
-    plain VPU vector code.  The accumulation order over taps matches the
-    reference's scalar loop exactly."""
+    Lowered as shifted multiply-adds rather than lax.conv: the slice+FMA
+    form fuses into one elementwise pass per axis, and its accumulation
+    order over taps matches the reference's scalar loop exactly."""
     half = len(taps) // 2
     h, w = img.shape
     # symmetric pad then valid conv; jnp.pad 'symmetric' matches the

@@ -1,8 +1,8 @@
 """Device mesh construction and sharding helpers.
 
 The reference has no multi-device capability at all (single GPU, no
-NCCL/MPI — SURVEY.md §2.4); scaling is a new first-class component designed
-for TPU: a 2-D mesh over {data, feat}:
+NCCL/MPI — SURVEY.md §2.4); scaling is a new first-class component: a 2-D
+mesh over {data, feat} that follows the algorithm, not the interconnect:
 
   * ``data``  — match-pair / track / query-feature data parallelism (the SfM
     analogue of DP: each device owns a slice of the work items)
@@ -11,8 +11,8 @@ for TPU: a 2-D mesh over {data, feat}:
     distance matrix is tiled across devices, structurally identical to ring
     attention over the feature axis)
 
-Collectives ride ICI within a slice; ``jax.distributed`` extends the same
-mesh across hosts over DCN.
+XLA lowers the collectives to NCCL; ``jax.distributed`` extends the same
+mesh across hosts.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ def host_tree(tree):
 
 
 def initialize_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None):
-    """Multi-host bring-up (one process per host): jax.distributed over DCN.
+    """Multi-host bring-up (one process per host): jax.distributed.
     No-op when already initialised or single-process."""
     if num_processes in (None, 1):
         return

@@ -49,10 +49,49 @@ def _build_mesh(spec: str):
     return make_mesh(jax.devices()[: data * feat], data=data, feat=feat)
 
 
+def build_state(args: argparse.Namespace):
+    """Load the images and cameras, build the mesh and the seed features:
+    the PipelineState that run_pipeline starts from.  None when there are
+    fewer than two images."""
+    from ssrlcv_tpu.features.sift import generate_features
+    from ssrlcv_tpu.io.images import load_directory, load_image_with_params
+    from ssrlcv_tpu.pipeline.stages import PipelineState
+
+    config = PipelineConfig(
+        output_dir=args.output_dir,
+        checkpoint_dir=args.checkpoint_dir,
+        do_pose=args.pose,
+        no_params=args.noparams,
+    ).replace(
+        match=MatchParams(epsilon=args.epsilon, delta=args.delta),
+    )
+
+    with logger.phase("load_images"):
+        images = load_directory(args.directory, no_params=args.noparams)
+    if len(images) < 2:
+        logger.err(f"need at least 2 images, found {len(images)}")
+        return None
+    logger.info(f"loaded {len(images)} images from {args.directory}")
+
+    state = PipelineState(config=config, images=images)
+    if args.mesh:
+        state.mesh = _build_mesh(args.mesh)
+        logger.info(f"distributed stages over mesh {dict(state.mesh.shape)}")
+
+    if args.seed:
+        seed_img = load_image_with_params(args.seed, -1, no_params=True)
+        with logger.phase("sift_seed"):
+            state.seed_features = generate_features(seed_img.pixels, config.sift, image_id=-1)
+    return state
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     import jax
 
+    from ssrlcv_tpu.backend import enable_compile_cache
+
+    enable_compile_cache()
     if jax.process_count() > 1:
         # multi-process (one per host): every process runs the same
         # pipeline and produces identical artifacts — write them to
@@ -73,43 +112,19 @@ def main(argv=None) -> int:
         logger.close()
         sys.exit(130)
 
-    signal.signal(signal.SIGINT, safe_shutdown)
+    previous = signal.signal(signal.SIGINT, safe_shutdown)
+    try:
+        from ssrlcv_tpu.pipeline.stages import run_pipeline
 
-    from ssrlcv_tpu.features.sift import generate_features
-    from ssrlcv_tpu.io.images import load_directory, load_image_with_params
-    from ssrlcv_tpu.pipeline.stages import PipelineState, run_pipeline
-
-    config = PipelineConfig(
-        output_dir=args.output_dir,
-        checkpoint_dir=args.checkpoint_dir,
-        do_pose=args.pose,
-        no_params=args.noparams,
-    ).replace(
-        match=MatchParams(epsilon=args.epsilon, delta=args.delta),
-    )
-
-    with logger.phase("load_images"):
-        images = load_directory(args.directory, no_params=args.noparams)
-    if len(images) < 2:
-        logger.err(f"need at least 2 images, found {len(images)}")
-        return 1
-    logger.info(f"loaded {len(images)} images from {args.directory}")
-
-    state = PipelineState(config=config, images=images)
-    if args.mesh:
-        state.mesh = _build_mesh(args.mesh)
-        logger.info(f"distributed stages over mesh {dict(state.mesh.shape)}")
-
-    if args.seed:
-        seed_img = load_image_with_params(args.seed, -1, no_params=True)
-        with logger.phase("sift_seed"):
-            state.seed_features = generate_features(seed_img.pixels, config.sift, image_id=-1)
-
-    state = run_pipeline(state)
-
-    logger.log_state("end")
-    logger.close()
-    return 0
+        state = build_state(args)
+        if state is None:
+            return 1
+        run_pipeline(state)
+        logger.log_state("end")
+        return 0
+    finally:
+        logger.close()
+        signal.signal(signal.SIGINT, previous)
 
 
 if __name__ == "__main__":

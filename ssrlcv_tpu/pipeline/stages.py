@@ -1,6 +1,6 @@
 """Pipeline stage orchestration with stage-door checkpoint/resume.
 
-TPU re-design of the reference Pipeline (Pipeline.cuh:17-127, Pipeline.cu)
+Re-design of the reference Pipeline (Pipeline.cuh:17-127, Pipeline.cu)
 and the SFM executable's 6-stage state machine (SFM.cu:61-359): each stage is
 a function over plain pytrees; after each stage an NPZ checkpoint + ``done``
 marker lands in ``<ckpt>/sfm-stage<N>/``, and ``run_pipeline`` resumes at the

@@ -1,6 +1,6 @@
 """RANSAC 7-point fundamental-matrix estimation + essential decomposition.
 
-TPU re-design of PoseEstimator::estimatePoseRANSAC (PoseEstimator.cu:13-312):
+Re-design of PoseEstimator::estimatePoseRANSAC (PoseEstimator.cu:13-312):
 the reference batches 7-match systems through cusolverDnSgesvdjBatched and a
 per-candidate inlier count; here the whole candidate population is one
 batched ``jnp.linalg.svd`` + Newton root solve + a (candidates x matches)
@@ -25,6 +25,8 @@ import jax
 import jax.numpy as jnp
 
 from ssrlcv_tpu.core.types import Cameras, MatchSet
+
+_einsum = partial(jnp.einsum, precision="highest")
 
 
 class RansacResult(NamedTuple):
@@ -122,15 +124,18 @@ def estimate_pose_ransac(
         [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]], F.dtype
     )
     K = K.at[0, 0].set(fx).at[1, 1].set(fx).at[0, 2].set(cx).at[1, 2].set(cy)
-    E = K.T @ F @ K
+    # K holds focal lengths of ~1e4 px: every product below runs at full
+    # float32 precision (a TF32 product would corrupt E and the rotations)
+    hi = partial(jnp.matmul, precision="highest")
+    E = hi(hi(K.T, F), K)
 
     U, S, Vt = jnp.linalg.svd(E)
     # enforce proper rotations
     U = U * jnp.sign(jnp.linalg.det(U))
     Vt = Vt * jnp.sign(jnp.linalg.det(Vt))
     W = jnp.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], F.dtype)
-    R1 = U @ W @ Vt
-    R2 = U @ W.T @ Vt
+    R1 = hi(hi(U, W), Vt)
+    R2 = hi(hi(U, W.T), Vt)
     tvec = U[:, 2]
 
     Kinv = jnp.linalg.inv(K)
@@ -138,19 +143,19 @@ def estimate_pose_ransac(
     def cheirality(R, tv):
         # triangulate inlier rays in normalised coords; count points with
         # positive depth in both cameras
-        qn = jnp.einsum("ij,nj->ni", Kinv, jnp.concatenate([q, jnp.ones_like(q[:, :1])], 1))
-        tn = jnp.einsum("ij,nj->ni", Kinv, jnp.concatenate([t, jnp.ones_like(t[:, :1])], 1))
+        qn = _einsum("ij,nj->ni", Kinv, jnp.concatenate([q, jnp.ones_like(q[:, :1])], 1))
+        tn = _einsum("ij,nj->ni", Kinv, jnp.concatenate([t, jnp.ones_like(t[:, :1])], 1))
         # z1 * qn x (R^T(z2*tn - t)) -> use midpoint of rays
         v1 = qn / jnp.linalg.norm(qn, axis=1, keepdims=True)
-        v2 = jnp.einsum("ij,nj->ni", R.T, tn)
+        v2 = _einsum("ij,nj->ni", R.T, tn)
         v2 = v2 / jnp.linalg.norm(v2, axis=1, keepdims=True)
-        p2 = jnp.einsum("ij,j->i", R.T, -tv)
+        p2 = _einsum("ij,j->i", R.T, -tv)
         from ssrlcv_tpu.geometry.triangulation import two_view_midpoints
 
         s1, s2 = two_view_midpoints(v1, jnp.zeros_like(v1), v2, jnp.broadcast_to(p2, v2.shape))
         X = (s1 + s2) / 2.0
         z1 = X[:, 2]
-        Xc2 = jnp.einsum("ij,nj->ni", R, X) + tv
+        Xc2 = _einsum("ij,nj->ni", R, X) + tv
         z2 = Xc2[:, 2]
         return jnp.sum(((z1 > 0) & (z2 > 0)) & inliers)
 

@@ -1,8 +1,9 @@
 import os
 
-# Tests run on CPU with a virtual 8-device mesh so multi-chip sharding logic
-# is exercised without TPU hardware (the fake-backend strategy SURVEY.md §4
-# calls for).  Must be set before jax is imported.
+# Tests run on CPU with a virtual 8-device mesh so multi-device sharding logic
+# is exercised without a GPU (the fake-backend strategy SURVEY.md §4 calls
+# for).  SSRLCV_TEST_PLATFORM=cuda,cpu runs them on a card instead, which is
+# how the `gpu`-marked tests run.  Must be set before jax is imported.
 _platform = os.environ.get("SSRLCV_TEST_PLATFORM", "cpu")
 os.environ["JAX_PLATFORMS"] = _platform
 flags = os.environ.get("XLA_FLAGS", "")
@@ -17,7 +18,9 @@ import jax
 jax.config.update("jax_platforms", _platform)
 # persistent compile cache: the SIFT pyramid costs ~45 s to compile cold on
 # CPU; cached reruns take ~half that
-jax.config.update("jax_compilation_cache_dir", os.path.join(os.path.dirname(__file__), "..", ".jax_cache_cpu"))
+from ssrlcv_tpu.backend import enable_compile_cache
+
+enable_compile_cache()
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import numpy as np
@@ -32,6 +35,17 @@ def _have_ref():
 
 
 requires_ref = pytest.mark.skipif(not _have_ref(), reason="reference fixtures not mounted")
+
+
+@pytest.fixture
+def gpu():
+    """The first GPU; skips unless JAX's first device is one (decided here,
+    never at import, so every test worker collects the same tests)."""
+    d = jax.devices()[0]
+    if d.platform != "gpu":
+        pytest.skip("needs a GPU: on the card run SSRLCV_TEST_PLATFORM=cuda,cpu "
+                    "python -m pytest tests/ -m gpu -p no:xdist")
+    return d
 
 
 @pytest.fixture(scope="session")

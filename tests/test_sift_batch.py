@@ -24,8 +24,8 @@ def test_quantize_cap_properties():
 
 
 def test_generate_features_many_cpu_fallback_matches_single():
-    """On CPU (no TPU kernels) the batch API must return exactly what the
-    per-image path returns."""
+    """On CPU the batch API must return exactly what the per-image path
+    returns."""
     from ssrlcv_tpu.config import SIFTParams
     from ssrlcv_tpu.features.sift import generate_features, generate_features_many
 

@@ -154,8 +154,7 @@ def main(pid: int, port: int) -> None:
     assert len(feats) == 2
     for i in range(2):
         # oracle: the SAME per-image fused program run on a local device
-        ref_fs = generate_features(px[i], sp, image_id=i, fused=True,
-                                   tpu_kernels=False)
+        ref_fs = generate_features(px[i], sp, image_id=i, fused=True)
         for name in ("loc", "sigma", "theta", "descriptors", "mask", "parent"):
             np.testing.assert_array_equal(
                 np.asarray(getattr(feats[i], name)),
@@ -167,8 +166,7 @@ def main(pid: int, port: int) -> None:
     from ssrlcv_tpu.matching.tracks import pairwise_index_matches
 
     feats3 = feats + [generate_features(np.roll(base, 16, axis=1), sp,
-                                        image_id=2, fused=True,
-                                        tpu_kernels=False)]
+                                        image_id=2, fused=True)]
     mp = MatchParams(mode="brute")
     got_pairs = sharded.sharded_pairwise_index_matches(mesh_i, feats3, cams, mp)
     ref_pairs = pairwise_index_matches(feats3, cams, mp)
